@@ -4,7 +4,7 @@ Scalar golden implementation of bwa-0.7.8's seeding machinery
 (`bwt_extend`, `bwt_smem1`, `bwt_sa`).  The reference FPGA does not do
 seeding — it runs on the host CPU (SURVEY.md §0: the AFU accelerates
 only `ksw_extend`); this module is the behavioural model the batched
-JAX/Pallas seeding kernels are fuzzed against.
+JAX seeding kernels are fuzzed against.
 
 Conventions: SA space is [0, seq_len2+1) including the sentinel row.
 A bi-interval (x0, x1, s) tracks:

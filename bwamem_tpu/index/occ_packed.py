@@ -9,7 +9,7 @@ Every operation vectorizes over arbitrarily many simultaneous queries
 (numpy here; the identical expressions jit under JAX for the device
 path — ops/smem_jax.py).
 
-This is the TPU-native analogue of the reference host's occ table; the
+This is the device-friendly analogue of the reference host's occ table; the
 FPGA never sees the index (seeding is host-side in the reference too,
 SURVEY.md §0).
 """

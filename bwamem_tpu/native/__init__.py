@@ -2,15 +2,25 @@
 
 The reference's native code is its RTL + the C host (SURVEY.md §2);
 ours is csrc/*.cpp compiled to a shared library.  The library builds
-lazily with g++ on first use and is cached next to this package; every
-native path has a pure-numpy fallback so the package works without a
-toolchain.
+with g++ on first use, for the machine that loads it (-march=native),
+into bwamem_tpu/native/build/.  Its file name carries a hash of the
+sources, the compiler command and the host (machine, CPU model), so a
+source edit or a move to another machine builds afresh and a library
+built elsewhere is never loaded.  Every native path has a pure-numpy
+fallback, so the package works without a toolchain; `require()` is the
+hard form for callers that asked for the native host explicitly.
+
+`cuda_library()` builds the GPU kernels (csrc/cuda/*.cu) the same way
+with nvcc for Hopper (sm_90a), keyed by their sources and the command.
 """
 
 from __future__ import annotations
 
 import ctypes
+import hashlib
 import os
+import platform
+import shutil
 import subprocess
 import threading
 
@@ -18,70 +28,174 @@ import numpy as np
 
 _HERE = os.path.dirname(os.path.abspath(__file__))
 _CSRC = os.path.join(_HERE, os.pardir, os.pardir, "csrc")
-_SO = os.path.join(_HERE, "libbwamem.so")
+_BUILD = os.path.join(_HERE, "build")
+_CXX = ["g++", "-O3", "-march=native", "-shared", "-fPIC", "-std=c++17"]
 _lock = threading.Lock()
 _lib = None
-_tried = False
+_error: str | None = None
 
 
-def _build() -> bool:
-    srcs = [os.path.join(_CSRC, f) for f in sorted(os.listdir(_CSRC))
+def _sources() -> list[str]:
+    return [os.path.join(_CSRC, f) for f in sorted(os.listdir(_CSRC))
             if f.endswith(".cpp")]
-    if not srcs:
-        return False
-    cmd = ["g++", "-O3", "-march=native", "-shared", "-fPIC", "-std=c++17",
-           "-o", _SO] + srcs
+
+
+def _host_id() -> str:
+    """The build target: machine and CPU model (what -march=native
+    reads), so a library is only reused on the kind of host that
+    built it."""
+    cpu = ""
     try:
-        subprocess.run(cmd, check=True, capture_output=True, timeout=300)
-        return True
-    except Exception:
-        return False
+        with open("/proc/cpuinfo") as f:
+            for line in f:
+                if line.startswith(("model name", "flags")):
+                    cpu += line
+    except OSError:
+        cpu = platform.processor()
+    return f"{platform.machine()}\n{cpu}"
+
+
+def library_path(srcs=None) -> str:
+    """Where the library built from `srcs` for this host lives."""
+    h = hashlib.sha256()
+    for part in (" ".join(_CXX), _host_id()):
+        h.update(part.encode())
+    for src in srcs if srcs is not None else _sources():
+        with open(src, "rb") as f:
+            h.update(f.read())
+    return os.path.join(_BUILD, f"libbwamem-{h.hexdigest()[:16]}.so")
+
+
+def _build(srcs, so) -> str | None:
+    """Compile `srcs` into `so`; returns None or the compiler's error."""
+    os.makedirs(_BUILD, exist_ok=True)
+    tmp = f"{so}.{os.getpid()}.part"
+    try:
+        r = subprocess.run(_CXX + ["-o", tmp] + srcs, capture_output=True,
+                           text=True, timeout=600)
+    except (OSError, subprocess.TimeoutExpired) as e:
+        return f"{' '.join(_CXX)}: {e}"
+    if r.returncode != 0:
+        return r.stderr or f"g++ exited with {r.returncode}"
+    os.replace(tmp, so)
+    return None
 
 
 def get_lib():
-    """The loaded shared library, or None if unavailable."""
-    global _lib, _tried
+    """The loaded shared library, or None if it cannot be built."""
+    global _lib, _error
     with _lock:
-        if _lib is not None or _tried:
+        if _lib is not None or _error is not None:
             return _lib
-        _tried = True
-        if not os.path.exists(_SO) or _newer_sources():
-            if not _build():
+        srcs = _sources()
+        if not srcs:
+            _error = f"no C++ sources under {_CSRC}"
+            return None
+        so = library_path(srcs)
+        if not os.path.exists(so):
+            _error = _build(srcs, so)
+            if _error is not None:
                 return None
         try:
-            lib = ctypes.CDLL(_SO)
-            lib.bwamem_sais_u8.restype = ctypes.c_int
-            lib.bwamem_sais_u8.argtypes = [
-                ctypes.POINTER(ctypes.c_uint8),
-                ctypes.POINTER(ctypes.c_int64),
-                ctypes.c_int64, ctypes.c_int64]
-            lib.bwamem_sais_bwt_u8.restype = ctypes.c_int
-            lib.bwamem_sais_bwt_u8.argtypes = [
-                ctypes.POINTER(ctypes.c_uint8), ctypes.c_int64,
-                ctypes.POINTER(ctypes.c_uint8),
-                ctypes.POINTER(ctypes.c_int64), ctypes.c_int64,
-                ctypes.POINTER(ctypes.c_int64)]
-            lib.bwamem_fastq_scan.restype = ctypes.c_int64
-            lib.bwamem_fastq_scan.argtypes = [
-                ctypes.c_char_p, ctypes.c_int64, ctypes.c_int64,
-                ctypes.POINTER(ctypes.c_int64)]
-            _bind_smem(lib)
-            _bind_ksw(lib)
-            _bind_mempipe(lib)
-            _lib = lib
-        except OSError:
-            _lib = None
+            lib = ctypes.CDLL(so)
+        except OSError as e:
+            _error = str(e)
+            return None
+        lib.bwamem_sais_u8.restype = ctypes.c_int
+        lib.bwamem_sais_u8.argtypes = [
+            ctypes.POINTER(ctypes.c_uint8),
+            ctypes.POINTER(ctypes.c_int64),
+            ctypes.c_int64, ctypes.c_int64]
+        lib.bwamem_sais_bwt_u8.restype = ctypes.c_int
+        lib.bwamem_sais_bwt_u8.argtypes = [
+            ctypes.POINTER(ctypes.c_uint8), ctypes.c_int64,
+            ctypes.POINTER(ctypes.c_uint8),
+            ctypes.POINTER(ctypes.c_int64), ctypes.c_int64,
+            ctypes.POINTER(ctypes.c_int64)]
+        lib.bwamem_fastq_scan.restype = ctypes.c_int64
+        lib.bwamem_fastq_scan.argtypes = [
+            ctypes.c_char_p, ctypes.c_int64, ctypes.c_int64,
+            ctypes.POINTER(ctypes.c_int64)]
+        p8 = ctypes.POINTER(ctypes.c_int8)
+        p32 = ctypes.POINTER(ctypes.c_int32)
+        lib.bwamem_banded_fused_host.restype = None
+        lib.bwamem_banded_fused_host.argtypes = [
+            p8, p8, p8, p8, p32, p32, p32, p32, ctypes.c_int64,
+            ctypes.c_int64]
+        _bind_smem(lib)
+        _bind_ksw(lib)
+        _bind_mempipe(lib)
+        _lib = lib
         return _lib
 
 
-def _newer_sources() -> bool:
-    try:
-        so_mtime = os.path.getmtime(_SO)
-        return any(
-            os.path.getmtime(os.path.join(_CSRC, f)) > so_mtime
-            for f in os.listdir(_CSRC) if f.endswith(".cpp"))
-    except OSError:
-        return True
+def require():
+    """The library, or a RuntimeError carrying the compiler's output."""
+    lib = get_lib()
+    if lib is None:
+        raise RuntimeError(f"native library unavailable:\n{_error}")
+    return lib
+
+
+_NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
+               "-O3", "-shared", "-Xcompiler", "-fPIC"]
+
+
+def cuda_library() -> str:
+    """Path of the CUDA kernels' shared library, built with nvcc on first
+    use; raises RuntimeError with nvcc's output when the build fails."""
+    import jax
+    import jax.ffi
+
+    nvcc = shutil.which("nvcc") or os.path.join(
+        os.environ.get("CUDA_HOME", "/usr/local/cuda"), "bin", "nvcc")
+    cuda = os.path.join(_CSRC, "cuda")
+    srcs = [os.path.join(cuda, f) for f in sorted(os.listdir(cuda))
+            if f.endswith(".cu")]
+    deps = srcs + [os.path.join(_CSRC, "banded_extend.h")]
+    cmd = [nvcc, *_NVCC_FLAGS, "-I", jax.ffi.include_dir()]
+    h = hashlib.sha256(" ".join(_NVCC_FLAGS + [jax.__version__]).encode())
+    for dep in deps:
+        with open(dep, "rb") as f:
+            h.update(f.read())
+    so = os.path.join(_BUILD, f"libbwamem_cuda-{h.hexdigest()[:16]}.so")
+    with _lock:
+        if os.path.exists(so):
+            return so
+        os.makedirs(_BUILD, exist_ok=True)
+        tmp = f"{so}.{os.getpid()}.part"
+        r = subprocess.run(cmd + ["-o", tmp] + srcs, capture_output=True,
+                           text=True, timeout=900)
+        if r.returncode != 0:
+            raise RuntimeError(f"nvcc failed:\n{r.stderr}")
+        os.replace(tmp, so)
+    return so
+
+
+def banded_fused_host(ql, tl, qr, tr, scal, prm) -> np.ndarray:
+    """The CUDA kernel's fused lanes (csrc/banded_extend.h) run on the
+    host: same arguments and (32, B) result as ops/extend_step.fused_xla.
+    For tests; raises when the library is unavailable."""
+    lib = require()
+    ql, tl, qr, tr = (np.ascontiguousarray(x, np.int8)
+                      for x in (ql, tl, qr, tr))
+    scal = np.ascontiguousarray(scal, np.int32)
+    prm = np.ascontiguousarray(prm, np.int32)
+    if scal.shape[0] < 10 or not (
+            ql.shape[1] == tl.shape[1] == qr.shape[1] == tr.shape[1]
+            == scal.shape[1]):
+        raise ValueError("banded_fused_host: mismatched lane counts")
+    B = scal.shape[1]
+    eh_rows = max(ql.shape[0], qr.shape[0]) + 1
+    out = np.zeros((32, B), np.int32)
+    eh = np.zeros((2, eh_rows, B), np.int32)
+    p8 = ctypes.POINTER(ctypes.c_int8)
+    p32 = ctypes.POINTER(ctypes.c_int32)
+    lib.bwamem_banded_fused_host(
+        *(x.ctypes.data_as(p8) for x in (ql, tl, qr, tr)),
+        scal.ctypes.data_as(p32), prm.ctypes.data_as(p32),
+        out.ctypes.data_as(p32), eh.ctypes.data_as(p32), B, eh_rows)
+    return out
 
 
 def sais_u8(s: np.ndarray) -> np.ndarray | None:

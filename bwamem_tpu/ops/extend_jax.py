@@ -31,7 +31,7 @@ from typing import NamedTuple
 import jax
 import jax.numpy as jnp
 
-NEG = jnp.int32(-(1 << 29))
+NEG = -(1 << 29)  # a Python int: importing touches no device
 
 
 class ExtendParams(NamedTuple):
@@ -161,15 +161,13 @@ def _row_step(state: ExtendState, query, qlen, target, tlen, aw, h0,
     off = jnp.abs(mj - i)
     max_off = jnp.where(improved, jnp.maximum(state.max_off, off), state.max_off)
 
-    # --- zdrop break (bwa-0.7.8; pass zdrop=0 for exact FPGA behaviour) ---
-    if p.zdrop > 0:
-        di = i - state.max_i
-        dj = mj - state.max_j
-        pen = jnp.where(di > dj, (di - dj) * p.e_del, (dj - di) * p.e_ins)
-        break_z = active & ~break_zero & ~improved & (
-            state.best - row_max - pen > p.zdrop)
-    else:
-        break_z = jnp.zeros_like(break_zero)
+    # --- zdrop break (bwa-0.7.8; pass zdrop=0 for exact FPGA behaviour);
+    #     zdrop may be a traced scalar, so the test is masked, not skipped ---
+    di = i - state.max_i
+    dj = mj - state.max_j
+    pen = jnp.where(di > dj, (di - dj) * p.e_del, (dj - di) * p.e_ins)
+    break_z = active & ~break_zero & ~improved & (p.zdrop > 0) & (
+        state.best - row_max - pen > p.zdrop)
 
     done = state.done | break_zero | break_z | (i + 1 >= tlen)
 

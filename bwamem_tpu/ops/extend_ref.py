@@ -23,7 +23,7 @@ semantics; see SURVEY.md §2.5 for the line-by-line decode):
     `score == prev || max_off < (w>>1)+(w>>2)`, which the FPGA moved
     inside the kernel (sw_extend.v:1765, 1963, 1878, 1969-1970).
 
-Everything downstream (the JAX twin, the Pallas kernel) is fuzz-tested
+Everything downstream (the JAX twin, the device step) is fuzz-tested
 against this file.
 """
 

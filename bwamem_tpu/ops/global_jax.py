@@ -6,7 +6,7 @@ is the device-side variant of that second pass: a jitted batched
 ksw_global2 twin (fill + traceback both under one jit) producing
 byte-identical (score, CIGAR) to pipeline/cigar.ksw_global.
 
-Design (TPU-first, not a transliteration of ksw.c):
+Design (vector-first, not a transliteration of ksw.c):
   * FILL — ``lax.scan`` over target rows.  Per row the whole query
     axis is computed vectorized: in ksw_global2 the E/F recurrences
     open from M (the diagonal), so a row has *no* serial dependency

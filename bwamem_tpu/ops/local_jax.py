@@ -5,7 +5,7 @@ the insert-size window around its anchor — ops/local_ref.py is the
 scalar twin, csrc/kswlocal.cpp the host production path).  This is the
 device twin: all rescue tasks of a chunk in one jitted call.
 
-TPU-first structure (same recipe as ops/global_jax):
+Vector-first structure (same recipe as ops/global_jax):
   * one ``lax.scan`` over target rows, whole query axis vectorized.
     The local-SW F recurrence F(j+1) = max(F(j)-e_ins, H(j)-oe_ins, 0)
     looks serial because H(j) = max(Hdiag(j), F(j)), but

@@ -3,16 +3,16 @@
 The reference scales by replicating PE arrays behind private double
 buffers, scheduled round-robin by batch_manager
 (/root/reference/batch_manager.v:994-1013; SURVEY.md §2.1 items 1-2).
-The TPU analogue: a `jax.sharding.Mesh` with a "data" axis; extension
-task batches are sharded along the batch (lane) dimension — each chip
-is one giant PE array — while the scoring parameters are replicated.
+Here: a `jax.sharding.Mesh` with a "data" axis; extension task
+batches are sharded along the batch (lane) dimension — each device is
+one giant PE array — while the scoring parameters are replicated.
 Per-read data never crosses chips (a read's tasks stay in one shard,
 like a task stays inside one PE array), so the only collective is the
 result gather XLA inserts for the replicated output layout.
 
-`make_sharded_raw_t_backend` wraps the PRODUCTION Pallas kernel
-(ops/extend_pallas.extend_batch_raw_t) in shard_map: the same bytes
-that run single-chip run per-shard, and the native host pipeline
+`make_sharded_raw_t_backend` wraps the platform's extension step
+(ops/extend_step.step_for) in shard_map: the same step that runs on
+one device runs per shard, and the native host pipeline
 (pipeline/native_driver.NativePipeline) consumes it unchanged — pass it
 as `raw_t_fn` and the whole aligner runs data-parallel.
 tests/test_dist.py pins sharded SAM == single-device SAM on an
@@ -32,114 +32,87 @@ def make_mesh(devices=None, axis: str = "data") -> Mesh:
     return Mesh(np.asarray(devices), (axis,))
 
 
-def make_sharded_raw_t_backend(mesh: Mesh, params: ExtendParams, *,
-                               blk_l: int = 512, interpret: bool = False):
-    """Data-parallel transposed-layout extension backend.
+def make_sharded_raw_t_backend(mesh: Mesh, params: ExtendParams):
+    """Data-parallel phased extension backend.
 
-    Returns raw_t(query_t, target_t, scal_t, tmaxb) -> (8, Bp) numpy,
-    the exact contract of native_driver's device backends, with the
-    task axis sharded over the mesh.  Bp must be a multiple of
-    `raw_t.bp_quantum` (= blk_l * n_devices); NativePipeline reads the
-    attribute and pads its batches accordingly.  `interpret=True` runs
-    the kernel in Pallas interpret mode (CPU meshes / tests)."""
-    from bwamem_tpu.ops.extend_pallas import extend_batch_raw_t
-
-    axis = mesh.axis_names[0]
-    n_dev = int(mesh.devices.size)
-
-    import jax.numpy as jnp
-
-    def local(tmaxb, query_t, target_t, scal_t):
-        # int8 or int32 inputs both accepted (the pipeline ships int8)
-        return extend_batch_raw_t(query_t.astype(jnp.int32),
-                                  target_t.astype(jnp.int32), scal_t,
-                                  tmaxb, params, blk_l=blk_l,
-                                  interpret=interpret)
-
-    fn = jax.jit(jax.shard_map(
-        local,
-        mesh=mesh,
-        in_specs=(P(axis), P(None, axis), P(None, axis), P(None, axis)),
-        out_specs=P(None, axis),
-        # pallas_call's out_shape (ShapeDtypeStruct) carries no vma
-        # annotation, which the varying-manual-axes checker requires;
-        # the sharding here is plain batch-dim data parallelism with no
-        # cross-shard communication, so the check adds nothing
-        check_vma=False,
-    ))
-
-    def raw_t(query_t, target_t, scal_t, tmaxb):
-        Bp = query_t.shape[1]
-        assert Bp % (blk_l * n_dev) == 0, (Bp, blk_l, n_dev)
-        return np.asarray(fn(tmaxb, query_t, target_t, scal_t))
-
-    raw_t.bp_quantum = blk_l * n_dev
-    return raw_t
-
-
-def make_sharded_fused_backend(mesh: Mesh, params: ExtendParams, *,
-                               blk_l: int = 512, interpret: bool = False):
-    """Data-parallel FUSED whole-alignment backend (the production
-    protocol: one device round trip per chunk, in-kernel band doubling
-    and left->right h0 chaining — ops/extend_pallas._extend_kernel_fused)
-    with the lane axis sharded over the mesh.  Same contract as
-    native_driver.make_fused_backend; NativePipeline pads Bp to
-    `bp_quantum` = blk_l * n_devices."""
-    from bwamem_tpu.ops.extend_pallas import (
-        extend_batch_raw_fused,
-        params_vector,
-    )
+    Returns raw_t(query_t, target_t, scal_t) -> (8, Bp) numpy, the
+    exact contract of native_driver.make_raw_t_backend, with the task
+    axis sharded over the mesh.  Bp must be a multiple of
+    `raw_t.bp_quantum` (= n_devices); NativePipeline reads the
+    attribute and pads its batches accordingly."""
+    from bwamem_tpu.ops.extend_step import params_vector, prepare
 
     axis = mesh.axis_names[0]
     n_dev = int(mesh.devices.size)
     prm = params_vector(params)
 
-    import jax.numpy as jnp
+    fn = jax.jit(jax.shard_map(
+        prepare().extend_pass,
+        mesh=mesh,
+        in_specs=(P(None, axis), P(None, axis), P(None, axis), P(None)),
+        out_specs=P(None, axis),
+        # the GPU kernel's FFI call result carries no vma annotation,
+        # which the varying-manual-axes checker requires;
+        # the sharding here is plain batch-dim data parallelism with no
+        # cross-shard communication, so the check adds nothing
+        check_vma=False,
+    ))
 
-    def local(tmax2, ql, tl, qr, tr, scal_t):
-        return extend_batch_raw_fused(
-            ql.astype(jnp.int32), tl.astype(jnp.int32),
-            qr.astype(jnp.int32), tr.astype(jnp.int32), scal_t, tmax2,
-            prm, blk_l=blk_l, interpret=interpret)
+    def raw_t(query_t, target_t, scal_t):
+        assert query_t.shape[1] % n_dev == 0, (query_t.shape, n_dev)
+        return np.asarray(fn(query_t, target_t, scal_t, prm))
+
+    raw_t.bp_quantum = n_dev
+    return raw_t
+
+
+def make_sharded_fused_backend(mesh: Mesh, params: ExtendParams):
+    """Data-parallel FUSED whole-alignment backend (one device call per
+    chunk, in-step band doubling and left->right h0 chaining) with the
+    lane axis sharded over the mesh.  Same contract as
+    native_driver.make_fused_backend; NativePipeline pads Bp to
+    `bp_quantum` = n_devices."""
+    from bwamem_tpu.ops.extend_step import params_vector, prepare
+
+    axis = mesh.axis_names[0]
+    n_dev = int(mesh.devices.size)
+    prm = params_vector(params)
 
     fn = jax.jit(jax.shard_map(
-        local,
+        prepare().fused,
         mesh=mesh,
-        in_specs=(P(axis), P(None, axis), P(None, axis), P(None, axis),
-                  P(None, axis), P(None, axis)),
+        in_specs=(P(None, axis),) * 5 + (P(None),),
         out_specs=P(None, axis),
         check_vma=False,  # same rationale as make_sharded_raw_t_backend
     ))
 
-    def fused(ql, tl, qr, tr, scal_t, tmax2):
-        Bp = ql.shape[1]
-        assert Bp % (blk_l * n_dev) == 0, (Bp, blk_l, n_dev)
-        return np.asarray(fn(tmax2, ql, tl, qr, tr, scal_t))
+    def fused(ql, tl, qr, tr, scal_t):
+        assert ql.shape[1] % n_dev == 0, (ql.shape, n_dev)
+        return np.asarray(fn(ql, tl, qr, tr, scal_t, prm))
 
     fused.fused = True
-    fused.bp_quantum = blk_l * n_dev
+    fused.bp_quantum = n_dev
     return fused
 
 
-def make_sharded_fused_idx_backend(mesh: Mesh, params: ExtendParams,
-                                   pac, *, blk_l: int = 512,
-                                   interpret: bool = False):
+def make_sharded_fused_idx_backend(mesh: Mesh, params: ExtendParams, pac):
     """Mesh-sharded resident-reference fused backend: the two-strand
     text and the chunk read matrix REPLICATE across the mesh (every
-    chip holds the index — the reference replicates the genome into
+    device holds the index — the reference replicates the genome into
     each PE array's host workspace the same way), while the per-lane
     scalar block shards on the lane axis; each shard gathers its own
     query/target windows locally, so no base payload crosses the host
-    link and no collective crosses chips.  Same call contract as
+    link and no collective crosses devices.  Same call contract as
     native_driver.make_fused_idx_backend."""
     import functools
 
-    from bwamem_tpu.ops.extend_pallas import params_vector
+    from bwamem_tpu.ops.extend_step import params_vector, prepare
     from bwamem_tpu.pipeline.native_driver import (
         fused_idx_local,
         resident_text_host,
     )
 
+    prepare()
     axis = mesh.axis_names[0]
     n_dev = int(mesh.devices.size)
     prm = params_vector(params)
@@ -149,35 +122,32 @@ def make_sharded_fused_idx_backend(mesh: Mesh, params: ExtendParams,
 
     @functools.partial(
         jax.jit, static_argnames=("qmax_l", "tmax_l", "qmax_r", "tmax_r"))
-    def fn(reads_nib, scal, tmax2, p, text, *, qmax_l, tmax_l, qmax_r,
-           tmax_r):
+    def fn(reads_nib, scal, p, text, *, qmax_l, tmax_l, qmax_r, tmax_r):
         local = functools.partial(
             fused_idx_local, qmax_l=qmax_l, tmax_l=tmax_l,
-            qmax_r=qmax_r, tmax_r=tmax_r, blk_l=blk_l,
-            interpret=interpret, a_max=a_max)
+            qmax_r=qmax_r, tmax_r=tmax_r, a_max=a_max)
         return jax.shard_map(
-            lambda r, s, t2, pp, tx: local(r, s, t2, pp, tx),
+            local,
             mesh=mesh,
-            in_specs=(P(None, None), P(None, axis), P(axis), P(None),
+            in_specs=(P(None, None), P(None, axis), P(None),
                       P(*([None] * text.ndim))),
             out_specs=P(None, axis),
             # plain batch-dim data parallelism; same vma rationale as
             # make_sharded_raw_t_backend
             check_vma=False,
-        )(reads_nib, scal, tmax2, p, text)
+        )(reads_nib, scal, p, text)
 
-    def fused_idx(reads_nib, scal, tmax2, dims, prm_override=None):
-        Bp = scal.shape[1]
-        assert Bp % (blk_l * n_dev) == 0, (Bp, blk_l, n_dev)
+    def fused_idx(reads_nib, scal, dims, prm_override=None):
+        assert scal.shape[1] % n_dev == 0, (scal.shape, n_dev)
         qmax_l, tmax_l, qmax_r, tmax_r = dims
-        return fn(reads_nib, scal, tmax2,
+        return fn(reads_nib, scal,
                   prm if prm_override is None else prm_override, text,
                   qmax_l=qmax_l, tmax_l=tmax_l, qmax_r=qmax_r,
                   tmax_r=tmax_r)
 
     fused_idx.fused = True
     fused_idx.idx = True
-    fused_idx.bp_quantum = blk_l * n_dev
+    fused_idx.bp_quantum = n_dev
     return fused_idx
 
 

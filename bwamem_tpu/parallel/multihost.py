@@ -24,7 +24,12 @@ def init_distributed(coordinator: str | None = None,
                      num_processes: int | None = None,
                      process_id: int | None = None) -> tuple[int, int]:
     """Initialize jax.distributed from args or env (JAX_COORDINATOR,
-    JAX_NUM_PROCESSES, JAX_PROCESS_ID).  Returns (process_id, n)."""
+    JAX_NUM_PROCESSES, JAX_PROCESS_ID).  Returns (process_id, n).
+
+    Each process sees one card: the ids in JAX_LOCAL_DEVICE_IDS when the
+    launcher sets them (several hosts), else card `process_id` (every
+    process on one host) — a JAX process reserves most of the memory of
+    every card it can see."""
     import jax
 
     coordinator = coordinator or os.environ.get("JAX_COORDINATOR")
@@ -33,10 +38,13 @@ def init_distributed(coordinator: str | None = None,
                             or os.environ.get("JAX_NUM_PROCESSES", "1"))
         process_id = int(process_id
                          or os.environ.get("JAX_PROCESS_ID", "0"))
+        local = os.environ.get("JAX_LOCAL_DEVICE_IDS")
         jax.distributed.initialize(
             coordinator_address=coordinator,
             num_processes=num_processes,
-            process_id=process_id)
+            process_id=process_id,
+            local_device_ids=([int(x) for x in local.split(",")] if local
+                              else [process_id]))
         return process_id, num_processes
     return 0, 1
 

@@ -4,7 +4,7 @@ bwa-0.7.8 `mem_chain2aln` / `mem_sort_and_dedup` / `mem_mark_primary_se`
 / `mem_approx_mapq_se` / `mem_reg2aln` / `mem_reg2sam_se` semantics.
 The extension calls go through an injectable `extend_fn` so the same
 control flow runs against the scalar golden kernel (default), or against
-results precomputed in batch on the TPU (pipeline/driver.py) — extension
+results precomputed in batch on the device (pipeline/driver.py) — extension
 order has no cross-seed data dependency (a seed's right extension only
 depends on its own left extension), so the device path speculatively
 extends every seed in two batched phases and this module just consumes

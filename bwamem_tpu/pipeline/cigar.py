@@ -3,7 +3,7 @@
 The reference FPGA is score-only — bwa runs this second, traceback pass
 on the CPU to produce CIGARs (SURVEY.md §7 "hard parts": replicate that
 split).  We keep it host-side (numpy) in the scalar twin; a traceback-
-emitting Pallas variant is a later optimization.
+emitting kernel variant is a later optimization.
 
 Semantics (ksw.c ksw_global2):
   * global DP over the full query x target with band |i*D - j| style

@@ -1,4 +1,4 @@
-"""Batched device extension driver — the batch_manager of the TPU build.
+"""Batched device extension driver — the batch_manager of this build.
 
 The reference streams fixed-capacity task batches into 4 PE arrays
 behind double buffers (batch_manager.v:397-562; SURVEY.md §2.1).  Here,
@@ -76,16 +76,15 @@ def _bucket(n: int, buckets=(128, 160, 192, 256, 320, 384, 512, 640,
                              768, 1024, 1536, 2048, 3072, 4096)) -> int:
     """Smallest standard size >= n.  Fixed shape buckets keep the set of
     compiled programs tiny — with per-batch exact shapes every batch
-    recompiled (the dominant cost: this environment's XLA compiles are
-    minutes), with buckets the compile happens once and lives in the
+    recompiles; with buckets the compile happens once and lives in the
     persistent cache.
 
-    The sequence-axis buckets are finer than powers of two (all
-    sublane-tile multiples of 32): the Pallas kernels compute every
-    padded SUBLANE of every row, so e.g. 150 bp reads in a 256 bucket
-    would waste 40% of the row work — the 160 bucket recovers it.
-    Typical short-read chunks see qmax 160/192 and tmax 320/384, so
-    the hot compile set stays small."""
+    The sequence-axis buckets are finer than powers of two (multiples
+    of 32): the plain XLA step computes every padded column of every
+    row, so e.g. 150 bp reads in a 256 bucket would waste 40% of the
+    row work — the 160 bucket recovers it.  Typical short-read chunks
+    see qmax 160/192 and tmax 320/384, so the hot compile set stays
+    small."""
     for b in buckets:
         if n <= b:
             return b
@@ -97,9 +96,9 @@ def _run_pass(opt, jobs, extend_batch_fn, k):
     Returns list of ExtendResult aligned with jobs.
 
     Tasks are sorted by target length before packing so each kernel
-    block's scalar-prefetched row bound is tight (the bucketing lesson
-    from SURVEY.md §7: the FPGA tolerates task-length divergence with
-    MIMD PEs; we sort instead)."""
+    block's row bound is tight (the bucketing lesson from SURVEY.md §7:
+    the FPGA tolerates task-length divergence with MIMD PEs; we sort
+    instead)."""
     import jax.numpy as jnp
 
     B = len(jobs)
@@ -107,7 +106,7 @@ def _run_pass(opt, jobs, extend_batch_fn, k):
     qmax = _bucket(max(max((len(j[1]) for j in jobs), default=1), 1))
     tmax = _bucket(max(max((len(j[2]) for j in jobs), default=1), 1))
     # power-of-two batch buckets: job counts jitter chunk-to-chunk and
-    # any unseen shape costs minutes through the remote compile service
+    # every unseen shape is a compile
     Bp = _bucket(max(B, 512), (512, 1024, 2048, 4096, 8192, 16384))
     query = np.zeros((Bp, qmax), np.int32)
     target = np.zeros((Bp, tmax), np.int32)
@@ -232,7 +231,7 @@ def align_batch(opt: MemOptions, ref: Reference, fm, reads,
     """Align a batch of reads with device-batched extension.
 
     extend_batch_fn(query, qlen, target, tlen, aw, h0) -> ExtendOut —
-    typically ops.extend_pallas.make_raw_backend(params) (or the
+    typically ops.extend_step.make_pass_backend(params) (or the
     extend_jax twin).  `po` (index.occ_packed.pack_occ) switches
     seeding to the native/batched path — identical output.
 

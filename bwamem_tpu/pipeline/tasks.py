@@ -1,4 +1,4 @@
-"""Extension-task batches: the TPU-native analogue of the reference's
+"""Extension-task batches: the vector-machine analogue of the reference's
 task/result wire formats (SURVEY.md §2.3/§2.4).
 
 The FPGA receives one 256 KB byte-stream batch per PE array (4096 cache
@@ -6,8 +6,8 @@ lines: header words, 8-word task descriptors, then 4-bit packed base
 payloads — decoded from sw_pe_array_task_parse.v / proc_element.v) and
 returns dense 5-word result records.  A byte-stream is the right format
 for a 32-bit streaming parser; it is the wrong format for a vector
-machine.  The TPU-native equivalent is a fixed-shape struct-of-arrays
-batch that lands in HBM as-is and is consumed by the Pallas kernel with
+machine.  The equivalent here is a fixed-shape struct-of-arrays
+batch that lands in device memory as-is and is consumed by the kernel with
 no parsing stage at all — `task_parse` (1963 lines of RTL) disappears
 into the packing done here on the host.
 
@@ -87,8 +87,8 @@ def pack_tasks(
     """Pack variable-length tasks into a fixed-shape SoA batch.
 
     qmax/tmax default to the batch maxima rounded up to `lane_multiple`
-    (TPU lane width). The batch dimension is rounded up to
-    `batch_multiple` (sublane granularity) with inert padding tasks.
+    (a vector width). The batch dimension is rounded up to
+    `batch_multiple` with inert padding tasks.
     """
     n = len(queries)
     assert n == len(targets)

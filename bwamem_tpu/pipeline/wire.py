@@ -4,7 +4,7 @@ This module exists for format parity with the reference hardware: it
 packs/unpacks the byte-exact 256 KB task-batch stream that
 `sw_pe_array_task_parse.v` consumes and the 5-word result records that
 `fill_resulBuf.v` emits (decoded field-by-field in SURVEY.md §2.3/§2.4).
-The TPU compute path does NOT use this format (see tasks.py for why);
+The device compute path does NOT use this format (see tasks.py for why);
 it is the interop/golden layer: a batch captured from the original
 host software can be decoded into our SoA batches, and our results can
 be re-encoded into the FPGA's result-buffer layout.

@@ -3,8 +3,8 @@
 // bwamem_tpu/pipeline/cigar.py (the tested golden implementation).
 //
 // The reference FPGA is score-only; bwa runs this second, traceback
-// pass on the host CPU (SURVEY.md §7 "hard parts").  In the TPU build
-// the pass stays host-side too, but the Python/numpy row loop costs
+// pass on the host CPU (SURVEY.md §7 "hard parts").  In this build the
+// pass stays host-side too (ops/global_jax is the device option), but the Python/numpy row loop costs
 // ~1 ms per region — the single largest host cost in the profile — so
 // it is replicated here at C speed.  Cell ordering, tie-breaking
 // (M >= E, H >= F; strict > keeps a gap open) and the 6-bit traceback

@@ -1,4 +1,4 @@
-"""Multi-chip data parallelism: the production extension path sharded
+"""Multi-device data parallelism: the production extension path sharded
 over a mesh must produce byte-identical SAM to the single-device path.
 
 Runs in a subprocess so the 8-device virtual CPU platform
@@ -31,7 +31,7 @@ from bwamem_tpu.index.build import build_index
 from bwamem_tpu.index.occ_packed import pack_occ
 from bwamem_tpu.io.fasta import Contig, Reference
 from bwamem_tpu.ops.extend_jax import ExtendParams
-from bwamem_tpu.ops.extend_pallas import extend_batch_raw_t
+from bwamem_tpu.ops.extend_step import params_vector, step_for
 from bwamem_tpu.parallel.dist import make_mesh, make_sharded_raw_t_backend
 from bwamem_tpu.pipeline.align import revcomp_read
 from bwamem_tpu.pipeline import native_driver
@@ -43,11 +43,10 @@ params = ExtendParams(
     e_ins=opt.e_ins, zdrop=opt.zdrop)
 
 mesh = make_mesh(jax.devices())
-BLK = 16  # small blocks keep the interpret-mode kernel fast
 
-# 1) kernel-level: sharded == unsharded on a random batch
+# 1) step-level: sharded == unsharded on a random batch
 rng = np.random.default_rng(0)
-Bp = BLK * 8 * 2
+Bp = 16 * 8 * 2
 qmax, tmax = 32, 64
 query_t = rng.integers(0, 4, (qmax, Bp)).astype(np.int32)
 target_t = rng.integers(0, 4, (tmax, Bp)).astype(np.int32)
@@ -56,13 +55,11 @@ scal_t[0] = rng.integers(5, qmax, Bp)
 scal_t[1] = rng.integers(5, tmax, Bp)
 scal_t[2] = 10
 scal_t[3] = rng.integers(1, 40, Bp)
-tmaxb = np.full(Bp // BLK, tmax, np.int32)
-want = np.asarray(extend_batch_raw_t(
+want = np.asarray(step_for().extend_pass(
     jnp.asarray(query_t), jnp.asarray(target_t), jnp.asarray(scal_t),
-    jnp.asarray(tmaxb), params, blk_l=BLK, interpret=True))
-sharded = make_sharded_raw_t_backend(mesh, params, blk_l=BLK,
-                                     interpret=True)
-got = sharded(query_t, target_t, scal_t, tmaxb)
+    params_vector(params)))
+sharded = make_sharded_raw_t_backend(mesh, params)
+got = sharded(query_t, target_t, scal_t)
 assert np.array_equal(want, got), "kernel mismatch under shard_map"
 print("kernel sharded == unsharded: ok")
 
@@ -82,12 +79,11 @@ for i in range(24):
         r = revcomp_read(r)
     reads.append(r)
 
-single = native_driver.make_raw_t_backend(params, blk_l=BLK,
-                                          interpret=True)
-pipe1 = native_driver.NativePipeline(opt, ref, fm, po, blk_l=BLK)
+single = native_driver.make_raw_t_backend(params)
+pipe1 = native_driver.NativePipeline(opt, ref, fm, po)
 want_sam = [[r.line() for r in rr]
             for rr in pipe1.align_chunk(reads, single)]
-pipe8 = native_driver.NativePipeline(opt, ref, fm, po, blk_l=BLK)
+pipe8 = native_driver.NativePipeline(opt, ref, fm, po)
 got_sam = [[r.line() for r in rr]
            for rr in pipe8.align_chunk(reads, sharded)]
 assert want_sam == got_sam, "SAM mismatch under mesh sharding"
@@ -96,9 +92,8 @@ print("e2e sharded SAM == single-device SAM: ok")
 # 3) the fused production protocol through the mesh
 from bwamem_tpu.parallel.dist import make_sharded_fused_backend
 
-sharded_fused = make_sharded_fused_backend(mesh, params, blk_l=BLK,
-                                           interpret=True)
-pipe8f = native_driver.NativePipeline(opt, ref, fm, po, blk_l=BLK)
+sharded_fused = make_sharded_fused_backend(mesh, params)
+pipe8f = native_driver.NativePipeline(opt, ref, fm, po)
 got_fused = [[r.line() for r in rr]
              for rr in pipe8f.align_chunk(reads, sharded_fused)]
 assert want_sam == got_fused, "SAM mismatch: sharded fused protocol"
@@ -108,9 +103,8 @@ print("e2e sharded fused SAM == single-device SAM: ok")
 # and read matrix replicated, scalar block sharded on lanes)
 from bwamem_tpu.parallel.dist import make_sharded_fused_idx_backend
 
-sharded_idx = make_sharded_fused_idx_backend(mesh, params, ref.pac,
-                                             blk_l=BLK, interpret=True)
-pipe8i = native_driver.NativePipeline(opt, ref, fm, po, blk_l=BLK)
+sharded_idx = make_sharded_fused_idx_backend(mesh, params, ref.pac)
+pipe8i = native_driver.NativePipeline(opt, ref, fm, po)
 got_idx = [[r.line() for r in rr]
            for rr in pipe8i.align_chunk(reads, sharded_idx)]
 assert want_sam == got_idx, "SAM mismatch: sharded fused_idx protocol"
@@ -171,10 +165,10 @@ for i in range(16):
         r[p] = (r[p] + 1) % 4
     r1s.append(r1)
     r2s.append(r2)
-pipeA = native_driver.NativePipeline(opt, ref, fm, po, blk_l=BLK)
+pipeA = native_driver.NativePipeline(opt, ref, fm, po)
 want_pe = [[r.line() for r in rr] for rr in pipeA.align_pairs_chunk(
     r1s, r2s, single, rescue_fn=rfn1, cigar_fn=make_cigar_backend())]
-pipeB = native_driver.NativePipeline(opt, ref, fm, po, blk_l=BLK)
+pipeB = native_driver.NativePipeline(opt, ref, fm, po)
 got_pe = [[r.line() for r in rr] for rr in pipeB.align_pairs_chunk(
     r1s, r2s, sharded, rescue_fn=rfn8,
     cigar_fn=make_sharded_cigar_backend(mesh))]
@@ -188,7 +182,7 @@ from bwamem_tpu.parallel.dist import (
     make_sharded_rescue_idx_backend,
 )
 
-pipeC = native_driver.NativePipeline(opt, ref, fm, po, blk_l=BLK)
+pipeC = native_driver.NativePipeline(opt, ref, fm, po)
 got_pe_idx = [[r.line() for r in rr] for rr in pipeC.align_pairs_chunk(
     r1s, r2s, sharded_idx,
     rescue_fn=make_sharded_rescue_idx_backend(mesh, ref.pac),
@@ -207,7 +201,7 @@ seed8 = make_sharded_device_seeder(mesh, po, fm, opt)
 rows1 = seed1(reads)
 rows8 = seed8(reads)
 assert np.array_equal(rows1, rows8), "seed rows mismatch under mesh"
-pipeD = native_driver.NativePipeline(opt, ref, fm, po, blk_l=BLK)
+pipeD = native_driver.NativePipeline(opt, ref, fm, po)
 pipeD.seed_fn = seed8
 got_seeded = [[r.line() for r in rr]
               for rr in pipeD.align_chunk(reads, sharded)]

@@ -1,7 +1,7 @@
 """Multi-host scale-out, driven end-to-end through REAL processes.
 
 The reference scales by putting 4 PE arrays behind one scheduler
-(/root/reference/batch_manager.v:397-562, 994-1013); the TPU analogue
+(/root/reference/batch_manager.v:397-562, 994-1013); the analogue here
 is N share-nothing host processes, each aligning the strided
 shard_reads assignment (`mem --shard K/N`) and a deterministic merge
 (`merge`) that restores input order byte-identically (SURVEY §7 step

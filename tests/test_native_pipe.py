@@ -372,19 +372,18 @@ def test_pe_device_cigar_only_sam_identical(world):
 
 
 def test_fused_sam_identical(world):
-    """The fused one-call protocol (mp_prepare_fused + the fused Pallas
-    kernel, interpret mode) == the Python oracle SAM byte for byte —
-    i.e. in-kernel band-doubling retry and in-lane left->right h0
+    """The fused one-call protocol (mp_prepare_fused + the platform's
+    fused step) == the Python oracle SAM byte for byte —
+    i.e. in-step band-doubling retry and in-lane left->right h0
     chaining reproduce the four-pass protocol exactly."""
     opt = MemOptions()
     ref, fm, po, rng = world
     reads, names, quals = make_reads(rng, ref, 32)
     row_fn, _ = _backends(opt)
-    fused_fn = native_driver.make_fused_backend(_params(opt), blk_l=128,
-                                                interpret=True)
+    fused_fn = native_driver.make_fused_backend(_params(opt))
     want = align_batch(opt, ref, fm, reads, row_fn, names=names,
                        quals=quals, po=po)
-    pipe = native_driver.NativePipeline(opt, ref, fm, po, blk_l=128)
+    pipe = native_driver.NativePipeline(opt, ref, fm, po)
     got = pipe.align_chunk(reads, fused_fn, names=names, quals=quals)
     want_lines = [[r.line() for r in rr] for rr in want]
     got_lines = [[r.line() for r in rr] for rr in got]
@@ -400,11 +399,10 @@ def test_fused_pe_sam_identical(world):
     ref, fm, po, rng = world
     r1s, r2s = _pe_world(rng, ref, 18)
     row_fn, _ = _backends(opt)
-    fused_fn = native_driver.make_fused_backend(_params(opt), blk_l=128,
-                                                interpret=True)
+    fused_fn = native_driver.make_fused_backend(_params(opt))
     want = align_pairs(opt, ref, fm, r1s, r2s, po=po,
                        extend_batch_fn=row_fn)
-    pipe = native_driver.NativePipeline(opt, ref, fm, po, blk_l=128)
+    pipe = native_driver.NativePipeline(opt, ref, fm, po)
     got = pipe.align_pairs_chunk(r1s, r2s, fused_fn)
     assert [[r.line() for r in x] for x in want] == \
         [[r.line() for r in x] for x in got]
@@ -462,11 +460,10 @@ def test_fused_idx_sam_identical(world):
     ref, fm, po, rng = world
     reads, names, quals = make_reads(rng, ref, 32)
     row_fn, _ = _backends(opt)
-    fn = native_driver.make_fused_idx_backend(
-        _params(opt), ref.pac, blk_l=128, interpret=True)
+    fn = native_driver.make_fused_idx_backend(_params(opt), ref.pac)
     want = align_batch(opt, ref, fm, reads, row_fn, names=names,
                        quals=quals, po=po)
-    pipe = native_driver.NativePipeline(opt, ref, fm, po, blk_l=128)
+    pipe = native_driver.NativePipeline(opt, ref, fm, po)
     got = pipe.align_chunk(reads, fn, names=names, quals=quals)
     assert [[r.line() for r in rr] for rr in want] == \
         [[r.line() for r in rr] for rr in got]
@@ -533,8 +530,7 @@ def test_fused_idx_bucket_split_sam_identical(world):
     reads += r2
     names += [s + "b" for s in n2]
     quals += q2
-    fn = native_driver.make_fused_idx_backend(
-        _params(opt), ref.pac, blk_l=128, interpret=True)
+    fn = native_driver.make_fused_idx_backend(_params(opt), ref.pac)
     calls = []
     orig = fn
 
@@ -544,10 +540,9 @@ def test_fused_idx_bucket_split_sam_identical(world):
 
     counting.fused = True
     counting.idx = True
-    counting.bp_quantum = orig.bp_quantum
-    pipe = native_driver.NativePipeline(opt, ref, fm, po, blk_l=128)
+    pipe = native_driver.NativePipeline(opt, ref, fm, po)
     want = pipe.align_chunk(reads, fn, names=names, quals=quals)
-    pipe2 = native_driver.NativePipeline(opt, ref, fm, po, blk_l=128,
+    pipe2 = native_driver.NativePipeline(opt, ref, fm, po,
                                          bucket_split=True)
     pipe2.split_min = 4
     got = pipe2.align_chunk(reads, counting, names=names, quals=quals)
@@ -565,11 +560,10 @@ def test_fused_idx_pe_sam_identical(world):
     ref, fm, po, rng = world
     r1s, r2s = _pe_world(rng, ref, 18)
     row_fn, _ = _backends(opt)
-    fn = native_driver.make_fused_idx_backend(
-        _params(opt), ref.pac, blk_l=128, interpret=True)
+    fn = native_driver.make_fused_idx_backend(_params(opt), ref.pac)
     want = align_pairs(opt, ref, fm, r1s, r2s, po=po,
                        extend_batch_fn=row_fn)
-    pipe = native_driver.NativePipeline(opt, ref, fm, po, blk_l=128)
+    pipe = native_driver.NativePipeline(opt, ref, fm, po)
     got = pipe.align_pairs_chunk(r1s, r2s, fn)
     assert [[r.line() for r in x] for x in want] == \
         [[r.line() for r in x] for x in got]
@@ -598,14 +592,12 @@ def test_fused_idx_n_bases_reference(world):
         if i % 2:
             r = revcomp_read(r)
         reads.append(r)
-    ship = native_driver.make_fused_backend(_params(opt), blk_l=128,
-                                            interpret=True)
-    idx = native_driver.make_fused_idx_backend(
-        _params(opt), ref.pac, blk_l=128, interpret=True)
+    ship = native_driver.make_fused_backend(_params(opt))
+    idx = native_driver.make_fused_idx_backend(_params(opt), ref.pac)
     want = native_driver.NativePipeline(
-        opt, ref, fm, po, blk_l=128).align_chunk(reads, ship)
+        opt, ref, fm, po).align_chunk(reads, ship)
     got = native_driver.NativePipeline(
-        opt, ref, fm, po, blk_l=128).align_chunk(reads, idx)
+        opt, ref, fm, po).align_chunk(reads, idx)
     assert [[r.line() for r in rr] for rr in want] == \
         [[r.line() for r in rr] for rr in got]
 
@@ -755,13 +747,11 @@ def test_fused_idx_boundary_positions(world):
         r = r.copy()
         r[50] = (r[50] + 1) % 4
         reads[i] = r
-    ship = native_driver.make_fused_backend(_params(opt), blk_l=128,
-                                            interpret=True)
-    idx = native_driver.make_fused_idx_backend(
-        _params(opt), pac, blk_l=128, interpret=True)
+    ship = native_driver.make_fused_backend(_params(opt))
+    idx = native_driver.make_fused_idx_backend(_params(opt), pac)
     outs = []
     for fn in (ship, idx):
-        pipe = native_driver.NativePipeline(opt, ref, fm, po, blk_l=128)
+        pipe = native_driver.NativePipeline(opt, ref, fm, po)
         outs.append([[r.line() for r in rr]
                      for rr in pipe.align_chunk(reads, fn)])
     assert outs[0] == outs[1]
